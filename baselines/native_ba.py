@@ -4,7 +4,7 @@ execution model — the native multi-zeta LM looped serially on ONE CPU core.
 The reference's BA consumer thread solves one ws=3 window at a time
 (`/root/reference/kitti_ba.cpp:757-905`: assemble constraints, call
 `Levenberg_Marquardt`, revert on high residual). This script replays that
-loop over the EXACT window tensors the TPU bench solves (passed as an npz
+loop over the EXACT window tensors the device bench solves (passed as an npz
 produced by `bench.build_ba_workload`), using the native windowed LM
 (`epivo_tpu/runtime/lm_ref.cpp::epivo_lm_windowed` — flat arrays, analytic
 Jacobians, hand-rolled Cholesky; no Eigen heap traffic, so it is FASTER

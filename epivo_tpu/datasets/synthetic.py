@@ -1,12 +1,12 @@
 """Synthetic SE(3) scene/sequence generator — the permanent test fixture.
 
-TPU-native re-design of the reference's test harness `sequence.hpp`
+Re-design of the reference's test harness `sequence.hpp`
 (`gen_T:10-29`, `gen_sequence:31-37`, `T_noise:39-50`, `noise_sequence:52-62`,
 `gen_points:64-104`, `gen_scene_sequence:106-159`): random bounded-rotation
 pose chains, calibrated perturbations, and visible-point sampling with known
 ground truth, used for GT-recovery property tests of the optimizer.
 
-Differences from the reference (deliberate, TPU-first):
+Differences from the reference (deliberate, for static shapes):
 - ``jax.random`` PRNG keys instead of ``rand()`` — reproducible, parallel.
 - The reference rejection-samples points until the target-frame depth
   exceeds 10 (`sequence.hpp:83-90`). Rejection loops are data-dependent

@@ -1,10 +1,10 @@
 """FAST-9/16 corner detection as dense, fixed-shape tensor ops.
 
-TPU-native replacement for the reference's OpenCV FAST usage
+Replacement for the reference's OpenCV FAST usage
 (`extract_kp` / `extract_kp_stereo`, ref `kitti_ba.cpp:39-111`;
 threshold-40 sites `kitti_ba.cpp:47`, `kitti_E.cpp:71`). Instead of a
 serial scan producing a variable-length keypoint vector, the whole image is
-tested at once on the VPU (16 rolled copies + segment tests), scored,
+tested at once (16 rolled copies + segment tests), scored,
 3x3-NMS'd, and reduced to a *fixed keypoint budget* with ``top_k`` — the
 score-ranked truncation that keeps every downstream shape static
 (SURVEY.md §7 "fixed budgets + validity masks").
@@ -102,7 +102,7 @@ def top_k_keypoints(score: jnp.ndarray, k: int,
     ``jax.lax.top_k`` over a full frame (~0.5M lanes) is a sort-class op;
     the two-stage path (default on for large maps) first reduces each
     16x16 block to its top-8 NMS survivors with 8 masked max-reductions
-    (pure VPU), then runs the exact top-k over the ~3% of candidates that
+    (elementwise), then runs the exact top-k over the ~3% of candidates that
     remain. Exact unless one 16x16 block holds more than 8 of the global
     top-k survivors — with 3x3 NMS spacing that needs pathologically dense
     corners, and a miss only swaps tail-of-budget keypoints.
@@ -156,32 +156,16 @@ def top_k_keypoints(score: jnp.ndarray, k: int,
     )
 
 
-def _use_pallas_default() -> bool:
-    """Pallas kernel on TPU backends; XLA elsewhere (CPU interpret is slow)."""
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except Exception:
-        return False
-
-
 def detect(img: jnp.ndarray, threshold: float = 40.0, max_keypoints: int = 1024,
-           nms: bool = True, use_pallas: bool | None = None) -> Keypoints:
+           nms: bool = True) -> Keypoints:
     """FAST detection with a fixed keypoint budget.
 
     Equivalent workload to `FastFeatureDetector::create(40)` + detect
     (ref `kitti_E.cpp:71-74`), with score-ranked truncation replacing the
-    variable-length output. On TPU the score map runs as a tiled Pallas
-    kernel (bit-identical, ~100x the XLA formulation's throughput); pass
-    ``use_pallas`` to override the automatic choice.
+    variable-length output. The score map and NMS are plain stencils that
+    XLA fuses.
     """
-    if use_pallas is None:
-        use_pallas = _use_pallas_default()
-    if use_pallas:
-        from epivo_tpu.frontend.pallas_fast import fast_score_map_pallas
-
-        s = fast_score_map_pallas(img, float(threshold), nms=nms)
-    else:
-        s = fast_score_map(img, threshold)
-        if nms:
-            s = nms3(s)
+    s = fast_score_map(img, threshold)
+    if nms:
+        s = nms3(s)
     return top_k_keypoints(s, max_keypoints)

@@ -1,8 +1,6 @@
 """Image utilities: bilinear sampling, gradients, pyramids.
 
-Shared by the detector/tracker kernels. Pure-JAX reference implementations;
-the hot paths have Pallas variants (see ``epivo_tpu/frontend/pallas_kernels.py``)
-selected automatically on TPU.
+Shared by the detector and the tracker; pure JAX.
 """
 
 from __future__ import annotations
@@ -84,9 +82,8 @@ def downsample2(img: jnp.ndarray) -> jnp.ndarray:
     (the construction cv::buildOpticalFlowPyramid uses).
 
     Decimation is FUSED into the blur: only the even-phase outputs are ever
-    computed, via phase-split reshapes (never ``[::2]`` strided slices — a
-    stride-2 slice along the lane dimension forces an expensive relayout on
-    TPU, while the phase reshape lowers to a cheap reshuffle). Computing
+    computed, via phase-split reshapes instead of ``[::2]`` strided
+    slices. Computing
     blurred values solely at kept pixels does ~2.7x less arithmetic than
     blur-everything-then-decimate (5(HW/2 + HW/4) vs 10HW multiply-adds)
     and the values are bit-identical.

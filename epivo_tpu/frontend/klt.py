@@ -1,29 +1,23 @@
 """Pyramidal Lucas-Kanade optical flow, batched over keypoints.
 
-TPU-native replacement for the reference's ``calcOpticalFlowPyrLK`` sites
+Replacement for the reference's ``calcOpticalFlowPyrLK`` sites
 (`kitti_ba.cpp:220-228,296-304`, `kitti_E.cpp:82-95`, `euroc.cpp:189-202`).
 Same algorithm and defaults as OpenCV (21x21 window, 3+1 pyramid levels,
 30 iterations / 0.01 epsilon termination, min-eigenvalue rejection).
 
-Performance design — this is the framework's hottest kernel, and TPUs
-execute irregular gathers orders of magnitude slower than dense math, so
-the tracker is built from two TPU-friendly primitives:
+Structure, per pyramid level:
 
-1. **Window extraction**: per keypoint and pyramid level, ONE
-   ``dynamic_slice`` pulls an integer-aligned (win + 2*margin + 1)^2 search
-   window (contiguous memory). This happens a handful of times per level,
-   never inside the iteration loop.
-2. **Bilinear-folded one-hot matmuls**: every patch sample inside the
-   iteration loop is ``Sy @ W @ Sx^T`` where Sy/Sx are per-point selection
-   matrices whose two adjacent one-hot diagonals carry the bilinear
-   fractions. Sampling a shifted patch therefore costs two small batched
-   matmuls on the MXU — zero gathers, zero dynamic slices in the hot loop.
+1. **Window extraction**: per keypoint, ONE ``dynamic_slice`` pulls an
+   integer-aligned (win + 2*margin + 1)^2 search window. The template and
+   its gradients are sampled once from the source window.
+2. **Iteration loop**: on CUDA backends it runs as one fused Pallas
+   (Triton) kernel per level (``pallas_klt.lk_iterate``), which reads the
+   target image directly; on other backends as a ``lax.scan`` over the
+   extracted target windows. The choice is made at lowering time from the
+   platform (``lax.platform_dependent``); both compute the same iterates.
 
 Border handling: window origins clamp at image borders, and the *effective*
 template center is tracked explicitly so clamping never biases the flow.
-
-This took 512-keypoint KITTI-frame tracking from 1280 ms (naive gather
-formulation) to ~milliseconds on a v5e chip (see BENCH notes).
 """
 
 from __future__ import annotations
@@ -33,7 +27,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from epivo_tpu.frontend import image as imops
+from epivo_tpu.frontend import image as imops, pallas_klt
 
 
 class FlowResult(NamedTuple):
@@ -42,76 +36,32 @@ class FlowResult(NamedTuple):
     err: jnp.ndarray  # [K] mean absolute patch residual
 
 
-def _selection_matrices(q: jnp.ndarray, S: int, win: int):
-    """Per-point bilinear selection matrices.
-
-    q: [K, 2] continuous top-left corners (x, y) in window coordinates,
-    assumed pre-clamped to [0, S - win - 1). Returns (Sy [K, win, S],
-    Sx [K, win, S]) such that patch = Sy @ W @ Sx^T bilinearly samples the
-    win x win patch at q from each window W.
-    """
-    dtype = q.dtype
-    cols = jnp.arange(S, dtype=jnp.int32)[None, None, :]  # [1, 1, S]
-    offs = jnp.arange(win, dtype=jnp.int32)[None, :, None]  # [1, win, 1]
-
-    def sel(coord):
-        i0 = jnp.floor(coord).astype(jnp.int32)[:, None, None]  # [K,1,1]
-        f = (coord - jnp.floor(coord)).astype(dtype)[:, None, None]
-        base = i0 + offs  # [K, win, 1]
-        return (
-            (cols == base).astype(dtype) * (1.0 - f)
-            + (cols == base + 1).astype(dtype) * f
-        )  # [K, win, S]
-
-    return sel(q[:, 1]), sel(q[:, 0])
-
-
-def _sample_batch(windows: jnp.ndarray, q: jnp.ndarray, win: int) -> jnp.ndarray:
-    """Bilinear win x win patches from [K, S, S] windows at top-left q [K, 2].
-
-    Two batched matmuls (MXU), no gathers.
-    """
-    S = windows.shape[-1]
-    hi = S - win - 1 - 1e-3
-    q = jnp.clip(q, 0.0, hi)
-    Sy, Sx = _selection_matrices(q, S, win)
-    tmp = jnp.einsum("kis,kst->kit", Sy, windows)  # [K, win, S]
-    return jnp.einsum("kit,kjt->kij", tmp, Sx)  # [K, win, win]
-
-
-def _extract_windows(img: jnp.ndarray, centers: jnp.ndarray, size: int,
-                     use_pallas: bool = False):
-    """[K] integer-aligned size x size windows.
-
-    Returns (windows [K, size, size], origins [K, 2]) where origins are the
-    *actual* clamped top-left corners — callers must use them (border
-    clamping shifts the window off-center).
-
-    Two implementations: a vmapped ``dynamic_slice`` (XLA gather; portable)
-    and, with ``use_pallas``, the VMEM-resident rotate-compaction kernel
-    (``pallas_klt.extract_windows_pallas``, ~10x faster on TPU — the
-    gather was the tracker's dominant cost, r2 profiling).
-    """
-    H, W = img.shape
+def _window_origins(shape: tuple[int, int], centers: jnp.ndarray,
+                    size: int) -> jnp.ndarray:
+    """[K, 2] int32 (x, y) top-left corners of size x size windows centred
+    on ``centers``, clamped so every window lies inside the image."""
+    H, W = shape
     r = size // 2
     c_int = jnp.round(centers).astype(jnp.int32)
     ox = jnp.clip(c_int[:, 0] - r, 0, W - size)
     oy = jnp.clip(c_int[:, 1] - r, 0, H - size)
+    return jnp.stack([ox, oy], axis=-1)
 
-    if use_pallas:
-        from epivo_tpu.frontend.pallas_klt import (
-            extract_windows_pallas, extraction_fits_vmem,
-        )
 
-        if size <= 128 and extraction_fits_vmem(H, W, img.dtype.itemsize):
-            wins = extract_windows_pallas(img, oy, ox, size)
-            return wins, jnp.stack([ox, oy], axis=-1).astype(img.dtype)
+def _extract_windows(img: jnp.ndarray, centers: jnp.ndarray, size: int):
+    """[K] integer-aligned size x size windows (a vmapped ``dynamic_slice``).
+
+    Returns (windows [K, size, size], origins [K, 2]) where origins are the
+    *actual* clamped top-left corners — callers must use them (border
+    clamping shifts the window off-center).
+    """
+    o = _window_origins(img.shape, centers, size)
 
     def slice_one(y, x):
         return jax.lax.dynamic_slice(img, (y, x), (size, size))
 
-    wins = jax.vmap(slice_one)(oy, ox)
-    return wins, jnp.stack([ox, oy], axis=-1).astype(img.dtype)
+    wins = jax.vmap(slice_one)(o[:, 1], o[:, 0])
+    return wins, o.astype(img.dtype)
 
 
 def _grad_batch(wins: jnp.ndarray):
@@ -132,11 +82,11 @@ def _shift_select(v: jnp.ndarray, idx: jnp.ndarray, out_len: int, n_off: int,
                   axis: int) -> jnp.ndarray:
     """Per-lane dynamic shift along ``axis`` via binary-decomposed selects.
 
-    v: [..., K] stack with the keypoint axis in TPU lanes; idx [K] integer
+    v: [..., K] stack with the keypoint axis last; idx [K] integer
     offsets in [0, n_off). Semantically returns
-    ``v[..., idx:idx+out_len, ...]`` per lane, as ceil(log2(n_off)) two-way
-    ``where`` stages over statically shifted views — O(log n) full-tile VPU
-    selects instead of the O(n) masked select-sum, no gathers.
+    ``v[..., idx:idx+out_len, ...]`` per keypoint, as ceil(log2(n_off))
+    two-way ``where`` stages over statically shifted views — O(log n)
+    elementwise selects instead of the O(n) masked select-sum, no gathers.
     """
     nbits = max(1, int(n_off - 1)).bit_length()
     shifts = [1 << b for b in range(nbits)][::-1]
@@ -162,16 +112,15 @@ def _shift_select(v: jnp.ndarray, idx: jnp.ndarray, out_len: int, n_off: int,
 
 
 def _sample_lanes(wins_T: jnp.ndarray, q: jnp.ndarray, win: int) -> jnp.ndarray:
-    """Lane-major bilinear patch sampling via binary-shift selects.
+    """Keypoint-last bilinear patch sampling via binary-shift selects.
 
-    wins_T: [S, S, K] windows with the keypoint axis in TPU lanes.
+    wins_T: [S, S, K] windows with the keypoint axis last.
     q: [K, 2] continuous top-left corners (clamped to [0, S - win - 1)).
     Returns [win, win, K].
 
     The per-keypoint integer offset is applied by :func:`_shift_select`
-    (log2(S - win) two-way selects over statically shifted views — pure VPU
-    work on fully-utilized (sublane, lane) tiles, no gathers, no per-lane
-    matmuls); the fractional part is the usual 4-tap blend of statically
+    (log2(S - win) two-way selects over statically shifted views, no
+    gathers); the fractional part is the usual 4-tap blend of statically
     shifted views.
     """
     S = wins_T.shape[0]
@@ -194,6 +143,68 @@ def _sample_lanes(wins_T: jnp.ndarray, q: jnp.ndarray, win: int) -> jnp.ndarray:
     )
 
 
+def _lk_iterate_scan(tgt, o_t, T, Ix, Iy, q0, S: int, iters: int,
+                     eps: float):
+    """The LK iteration loop as a ``lax.scan`` over extracted windows.
+
+    tgt: [H, W] target level; o_t: [K, 2] int32 origins (x, y) of the
+    S x S search windows; T/Ix/Iy: [win, win, K] template and gradients;
+    q0: [K, 2] top-left patch corners in window coordinates, within
+    [0, S - win - 1). Returns (q_fin [K, 2], err [K]) with err the mean
+    absolute residual at q_fin. A keypoint freezes once its step is shorter
+    than ``eps``.
+    """
+    win = T.shape[0]
+    hi = S - win - 1 - 1e-3
+    tgt_lanes = jnp.transpose(
+        jax.vmap(lambda y, x: jax.lax.dynamic_slice(tgt, (y, x), (S, S)))(
+            o_t[:, 1], o_t[:, 0]), (1, 2, 0))
+    Gxx = jnp.sum(Ix * Ix, axis=(0, 1))
+    Gxy = jnp.sum(Ix * Iy, axis=(0, 1))
+    Gyy = jnp.sum(Iy * Iy, axis=(0, 1))
+    det = Gxx * Gyy - Gxy * Gxy
+    inv_det = jnp.where(jnp.abs(det) > 1e-12, 1.0 / det, 0.0)
+
+    def body(carry, _):
+        q, done = carry
+        P = _sample_lanes(tgt_lanes, q, win)
+        dI = P - T
+        bx = jnp.sum(dI * Ix, axis=(0, 1))
+        by = jnp.sum(dI * Iy, axis=(0, 1))
+        dx = -(Gyy * bx - Gxy * by) * inv_det
+        dy = -(-Gxy * bx + Gxx * by) * inv_det
+        step = jnp.stack([dx, dy], axis=-1)  # [K, 2]
+        q_new = jnp.where(done[:, None], q, jnp.clip(q + step, 0.0, hi))
+        done_new = done | (jnp.linalg.norm(step, axis=-1) < eps)
+        return (q_new, done_new), None
+
+    (q_fin, _), _ = jax.lax.scan(
+        body, (q0, jnp.zeros(q0.shape[0], bool)), None, length=iters)
+    err = jnp.mean(jnp.abs(_sample_lanes(tgt_lanes, q_fin, win) - T),
+                   axis=(0, 1))
+    return q_fin, err
+
+
+def _lk_iterate_kernel(tgt, o_t, T, Ix, Iy, q0, S: int, iters: int,
+                       eps: float, interpret: bool = False):
+    """:func:`_lk_iterate_scan`'s contract through the fused Triton kernel
+    (keypoint-major operands; the kernel reads the target image itself).
+    ``interpret=True`` runs the kernel on the CPU, for tests."""
+    to_kmajor = lambda a: jnp.transpose(a, (2, 0, 1))
+    return pallas_klt.lk_iterate(tgt, o_t, to_kmajor(T), to_kmajor(Ix),
+                                 to_kmajor(Iy), q0, S, iters, eps,
+                                 interpret=interpret)
+
+
+def _lk_iterate(tgt, o_t, T, Ix, Iy, q0, S: int, iters: int, eps: float):
+    """The LK iteration loop for the platform being compiled for: the fused
+    kernel on CUDA, the scan elsewhere (resolved at lowering time)."""
+    run = lambda impl: lambda *a: impl(*a, S, iters, eps)
+    return jax.lax.platform_dependent(
+        tgt, o_t, T, Ix, Iy, q0,
+        cuda=run(_lk_iterate_kernel), default=run(_lk_iterate_scan))
+
+
 def _track_level(
     src: jnp.ndarray,
     tgt: jnp.ndarray,
@@ -205,29 +216,22 @@ def _track_level(
     eps: float,
     min_eig: float,
     n_chunks: int = 2,
-    use_pallas: bool = False,
 ):
     """One pyramid level of LK for all points at once.
 
     pt_src / guess: [K, 2] positions at this level's scale.
     Returns (new_guess [K, 2], ok [K], err [K]).
-
-    With ``use_pallas`` the per-chunk iteration loop runs as the VMEM-
-    resident Pallas kernel (`pallas_klt.lk_iterate_pallas`, same math);
-    otherwise as a ``lax.scan``.
     """
     S = win + 2 * margin + 1
-    dtype = pt_src.dtype
     hi = S - win - 1 - 1e-3
 
     # --- source: template + gradients, one extraction ---
-    src_wins, o_s = _extract_windows(src, pt_src, S, use_pallas=use_pallas)
+    src_wins, o_s = _extract_windows(src, pt_src, S)
     gx, gy = _grad_batch(src_wins)
     q_s = jnp.clip(pt_src - o_s - (win - 1) / 2.0, 0.0, hi)
     # Effective template centers (clamp-aware; see module docstring).
     c_eff = o_s + q_s + (win - 1) / 2.0
 
-    # Lane-major layout: keypoints in the last (lane) dimension.
     to_lanes = lambda w: jnp.transpose(w, (1, 2, 0))
     T = _sample_lanes(to_lanes(src_wins), q_s, win)
     Ix = _sample_lanes(to_lanes(gx), q_s, win)
@@ -240,55 +244,18 @@ def _track_level(
     trace = Gxx + Gyy
     min_ev = (trace - jnp.sqrt(jnp.maximum(trace * trace - 4 * det, 0.0))) / 2.0
     ok = min_ev / (win * win) > min_eig
-    inv_det = jnp.where(jnp.abs(det) > 1e-12, 1.0 / det, 0.0)
 
     # --- target: iterate inside margin windows; re-center between chunks ---
     chunk_iters = max(1, iters // n_chunks)
     g = guess + (c_eff - pt_src)  # track the effective template center
-
-    q_last = None
-    tgt_lanes = o_t = None
     err = None
     for _ in range(n_chunks):
-        tgt_wins, o_t = _extract_windows(tgt, g, S, use_pallas=use_pallas)
-        tgt_lanes = to_lanes(tgt_wins)
-        q0 = jnp.clip(g - o_t - (win - 1) / 2.0, 0.0, hi)
+        o_t = _window_origins(tgt.shape, g, S)
+        o_tf = o_t.astype(g.dtype)
+        q0 = jnp.clip(g - o_tf - (win - 1) / 2.0, 0.0, hi)
+        q_fin, err = _lk_iterate(tgt, o_t, T, Ix, Iy, q0, S, chunk_iters, eps)
+        g = q_fin + o_tf + (win - 1) / 2.0
 
-        if use_pallas:
-            from epivo_tpu.frontend.pallas_klt import lk_iterate_pallas
-
-            q_fin, err = lk_iterate_pallas(
-                tgt_lanes, T, Ix, Iy, q0, win, chunk_iters, eps
-            )
-        else:
-
-            def body(carry, _):
-                q, done = carry
-                P = _sample_lanes(tgt_lanes, q, win)
-                dI = P - T
-                bx = jnp.sum(dI * Ix, axis=(0, 1))
-                by = jnp.sum(dI * Iy, axis=(0, 1))
-                dx = -(Gyy * bx - Gxy * by) * inv_det
-                dy = -(-Gxy * bx + Gxx * by) * inv_det
-                step = jnp.stack([dx, dy], axis=-1)  # [K, 2]
-                q_new = jnp.where(
-                    done[:, None], q, jnp.clip(q + step, 0.0, hi)
-                )
-                done_new = done | (jnp.linalg.norm(step, axis=-1) < eps)
-                return (q_new, done_new), None
-
-            (q_fin, _), _ = jax.lax.scan(
-                body, (q0, jnp.zeros(g.shape[0], bool)), None,
-                length=chunk_iters,
-            )
-        g = q_fin + o_t + (win - 1) / 2.0
-        q_last = q_fin
-
-    if err is None:
-        # Final error from the last chunk's window (saves a re-extraction;
-        # the final iterate rarely exceeds the margin within a chunk).
-        P_fin = _sample_lanes(tgt_lanes, q_last, win)
-        err = jnp.mean(jnp.abs(P_fin - T), axis=(0, 1))
     # Position of pt_src's content = pt_src + measured template flow.
     return pt_src + (g - c_eff), ok, err
 
@@ -306,7 +273,6 @@ def track(
     max_err: float = 1e9,
     margin: int | tuple[int, ...] | list[int] | None = None,
     n_chunks: int = 1,
-    use_pallas: bool | None = None,
 ) -> FlowResult:
     """Track points from src to tgt image. pts [K, 2] (x, y) pixels.
 
@@ -319,15 +285,8 @@ def track(
     level (where the unknown full motion must be absorbed) and shrinks to
     6 at the fine levels, where the incoming coarse-level guess leaves
     only a subpixel-to-few-pixel residual: window extraction + gradient
-    cost scales with (win + 2*margin + 1)^2, and extraction — not
-    iteration — is what the TPU pays for. On TPU backends the iteration
-    loop runs as a VMEM-resident Pallas kernel (same math); pass
-    ``use_pallas`` to override.
+    cost scales with (win + 2*margin + 1)^2.
     """
-    if use_pallas is None:
-        from epivo_tpu.frontend.fast import _use_pallas_default
-
-        use_pallas = _use_pallas_default()
     if margin is None:
         # Residual flow halves per refined level; 6 px covers it generously.
         margin = [6] * levels
@@ -363,7 +322,7 @@ def track(
         p_lvl = pts / scale
         g, ok_lvl, err = _track_level(
             pyr_s[lvl], pyr_t[lvl], p_lvl, g, win, margin[lvl], iters, eps,
-            min_eig, n_chunks=n_chunks, use_pallas=use_pallas,
+            min_eig, n_chunks=n_chunks,
         )
         ok = ok & ok_lvl
         if lvl > 0:

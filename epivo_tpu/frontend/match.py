@@ -1,12 +1,12 @@
-"""Descriptor matching: Hamming distance as one MXU matmul.
+"""Descriptor matching: Hamming distance as one matmul.
 
-TPU-native replacement for the reference's brute-force Hamming matcher
+Replacement for the reference's brute-force Hamming matcher
 (``BFMatcher(NORM_HAMMING2, crossCheck=true)``, `kitti_ba.cpp:602,640-693`).
 With descriptors as {-1,+1} vectors d of length B, the Hamming distance is
     H(a, b) = (B - a . b) / 2,
 so the full N1 x N2 distance table is a single [N1,B]x[B,N2] matmul — the
-exact computation OpenCV does with popcounts, but in the shape TPUs are
-built for. Cross-check (mutual nearest neighbor) and Lowe ratio tests are
+exact computation OpenCV does with popcounts, as one dense product.
+Cross-check (mutual nearest neighbor) and Lowe ratio tests are
 masked argmin reductions.
 """
 
@@ -28,7 +28,7 @@ class MatchResult(NamedTuple):
 def hamming_table(signs1: jnp.ndarray, signs2: jnp.ndarray) -> jnp.ndarray:
     """[N1, B] x [N2, B] {-1,+1} descriptors -> [N1, N2] Hamming distances."""
     B = signs1.shape[-1]
-    dot = signs1 @ signs2.T  # MXU
+    dot = signs1 @ signs2.T
     return (B - dot) * 0.5
 
 

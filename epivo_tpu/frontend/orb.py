@@ -1,6 +1,6 @@
-"""Oriented BRIEF (ORB-class) descriptors, batched for TPU.
+"""Oriented BRIEF (ORB-class) descriptors, batched over keypoints.
 
-TPU-native replacement for the reference's OpenCV ORB usage
+Replacement for the reference's OpenCV ORB usage
 (`extract_good_kp`, `kitti_ba.cpp:114-156`: 10000 features, 8 levels,
 FAST_SCORE). Components:
 
@@ -11,10 +11,10 @@ FAST_SCORE). Components:
   of OpenCV's learned table; matching quality is equivalent for VO-scale
   tracking and the pattern is reproducible from the seed);
 - all point samples inside a keypoint's patch are computed with the same
-  bilinear-folded one-hot matmul trick as the KLT tracker — zero gathers.
+  bilinear-folded one-hot matmuls over each keypoint's window.
 
 Descriptors are produced as {-1, +1} float vectors [K, 256] so Hamming
-distance becomes a single MXU matmul (see ``epivo_tpu.frontend.match``),
+distance becomes a single matmul (see ``epivo_tpu.frontend.match``),
 plus a bit-packed uint32 view for storage/export parity.
 """
 

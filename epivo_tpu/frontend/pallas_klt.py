@@ -1,17 +1,20 @@
-"""Pyramidal LK iteration loop as a Pallas TPU kernel.
+"""The pyramidal-LK iteration loop as one fused Pallas (Triton) kernel.
 
-TPU-native core of the tracker that replaces the reference's
-``calcOpticalFlowPyrLK`` inner loop (`kitti_ba.cpp:220-228`,
-`kitti_E.cpp:82-95`). The XLA formulation (``klt._track_level``'s
-``lax.scan``) round-trips the [S, S, K] window stack and the iteration
-carry through HBM on every loop step; this kernel keeps the windows, the
-template, and the gradients resident in VMEM for all iterations, so each
-LK step is pure VPU work on (sublane, lane) tiles with the keypoint axis
-in lanes.
+``klt._lk_iterate_scan`` runs the loop as a ``lax.scan``: each of the 30
+iterations of each pyramid level is several small XLA kernels over the
+whole keypoint set, and no fusion crosses an iteration. This kernel runs
+every iteration of one level in a single launch:
 
-Semantics are identical to the scan path (same binary-shift bilinear
-sampler, same clamping, same eps-freeze rule); ``klt.track`` selects this
-kernel automatically on TPU backends.
+- each program owns one keypoint;
+- the template and its gradients live in registers for the whole loop,
+  keypoint-major and padded from win x win to 32 x 32 with masks;
+- every iteration samples the target patch with four masked gathers
+  straight from the target image (no window extraction);
+- a program stops as soon as its keypoint has converged.
+
+The iterates equal the scan's up to float32 summation order. ``klt``
+calls it on CUDA backends only; ``interpret=True`` runs it on the CPU for
+tests.
 """
 
 from __future__ import annotations
@@ -21,328 +24,112 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from epivo_tpu.frontend.pallas_backend import resolve_interpret
-
-_LANE_BLOCK = 128
-
-
-def _shift_select(v, idx_bits, out_len, n_off, axis):
-    """Per-lane dynamic shift via binary-decomposed two-way selects.
-
-    Same construction as ``klt._shift_select`` (see there for the
-    derivation); ``idx_bits`` is the integer offset already reshaped to
-    broadcast against ``v``.
-    """
-    nbits = max(1, int(n_off - 1)).bit_length()
-    shifts = [1 << b for b in range(nbits)][::-1]
-    need = out_len + sum(shifts)
-    L = v.shape[axis]
-    if L < need:
-        pad = [(0, 0)] * v.ndim
-        pad[axis] = (0, need - L)
-        v = jnp.pad(v, pad)
-    rem = need
-    cur = jax.lax.slice_in_dim(v, 0, need, axis=axis)
-    for s in shifts:
-        rem -= s
-        bit = (idx_bits & s) != 0
-        cur = jnp.where(
-            bit,
-            jax.lax.slice_in_dim(cur, s, s + rem, axis=axis),
-            jax.lax.slice_in_dim(cur, 0, rem, axis=axis),
-        )
-    return cur
+PATCH = 32  # power-of-two cover of the patch edge (win <= 32)
+# One keypoint and four warps per program: at K=512, win=21, 30 iterations
+# this was the fastest of {1, 2, 4} keypoints x {4, 8} warps per program
+# on an H100 (0.177 ms at S=34, 0.212 ms at S=46; at 12 iterations no
+# shape won every run). Larger blocks only add padding and gather traffic.
+NUM_WARPS = 4
 
 
-def _sample(wins, qx, qy, win, n_off):
-    """Bilinear [win, win, Kb] patches from [S, S, Kb] at per-lane (qx, qy)."""
-    ix = jnp.floor(qx).astype(jnp.int32)[None, None, :]
-    iy = jnp.floor(qy).astype(jnp.int32)[None, None, :]
-    fx = (qx - jnp.floor(qx))[None, None, :]
-    fy = (qy - jnp.floor(qy))[None, None, :]
-    acc_y = _shift_select(wins, iy, win + 1, n_off, axis=0)
-    acc = _shift_select(acc_y, ix, win + 1, n_off, axis=1)
-    return (
-        acc[:win, :win] * (1 - fx) * (1 - fy)
-        + acc[:win, 1:] * fx * (1 - fy)
-        + acc[1:, :win] * (1 - fx) * fy
-        + acc[1:, 1:] * fx * fy
-    )
+def _lk_kernel(img_ref, ox_ref, oy_ref, qx_ref, qy_ref, T_ref, Ix_ref,
+               Iy_ref, qx_out, qy_out, err_out, *, W, win, S, iters, eps):
+    """One keypoint (a leading axis of length 1). Image and template refs
+    are flat; every load is a gather at computed offsets, masked to the
+    win x win patch inside the 32 x 32 block."""
+    k = pl.program_id(0) + jnp.zeros((1,), jnp.int32)
+    r = jnp.arange(PATCH, dtype=jnp.int32)[None, :, None]
+    c = jnp.arange(PATCH, dtype=jnp.int32)[None, None, :]
+    pmask = (r < win) & (c < win)
+    toff = k[:, None, None] * (win * win) + r * win + c
+    T = plgpu.load(T_ref.at[toff], mask=pmask, other=0.0)
+    Ix = plgpu.load(Ix_ref.at[toff], mask=pmask, other=0.0)
+    Iy = plgpu.load(Iy_ref.at[toff], mask=pmask, other=0.0)
 
+    def patch_sum(x):  # [1, PATCH, PATCH] -> [1]
+        return jnp.sum(jnp.sum(x, axis=2), axis=1)
 
-def _lk_kernel(win, S, iters, eps, tgt_ref, T_ref, Ix_ref, Iy_ref, q_ref,
-               qout_ref, err_ref):
-    """All LK iterations for one lane block, entirely in VMEM.
-
-    tgt_ref: [S, S, Kb] target windows; T/Ix/Iy: [win, win, Kb] template and
-    gradients (pre-sampled at the template's fractional position);
-    q_ref: [2, Kb] initial top-left corners (row 0 = x, row 1 = y).
-    qout_ref: [2, Kb] final corners; err_ref: [1, Kb] mean |residual|.
-    """
-    n_off = S - win
-    hi = jnp.float32(S - win - 1 - 1e-3)
-    tgt = tgt_ref[:]
-    T = T_ref[:]
-    Ix = Ix_ref[:]
-    Iy = Iy_ref[:]
-
-    Gxx = jnp.sum(Ix * Ix, axis=(0, 1))[None, :]  # [1, Kb]
-    Gxy = jnp.sum(Ix * Iy, axis=(0, 1))[None, :]
-    Gyy = jnp.sum(Iy * Iy, axis=(0, 1))[None, :]
+    Gxx = patch_sum(Ix * Ix)
+    Gxy = patch_sum(Ix * Iy)
+    Gyy = patch_sum(Iy * Iy)
     det = Gxx * Gyy - Gxy * Gxy
     inv_det = jnp.where(jnp.abs(det) > 1e-12, 1.0 / det, 0.0)
 
-    q0 = q_ref[:]  # [2, Kb]
-    qx0 = jnp.clip(q0[0:1, :], 0.0, hi)
-    qy0 = jnp.clip(q0[1:2, :], 0.0, hi)
-    # ``done`` is carried as float 0/1: a bool vector in the fori_loop carry
-    # trips a Mosaic mask-layout bug (i1 packing mismatch across iterations).
-    done0 = jnp.zeros_like(qx0)
+    ox = plgpu.load(ox_ref.at[k])
+    oy = plgpu.load(oy_ref.at[k])
+    hi = jnp.float32(S - win - 1 - 1e-3)
+    qx0 = jnp.clip(plgpu.load(qx_ref.at[k]), 0.0, hi)
+    qy0 = jnp.clip(plgpu.load(qy_ref.at[k]), 0.0, hi)
 
-    def body(_, carry):
-        qx, qy, done = carry  # each [1, Kb]
-        P = _sample(tgt, qx[0], qy[0], win, n_off)
-        dI = P - T
-        bx = jnp.sum(dI * Ix, axis=(0, 1))[None, :]
-        by = jnp.sum(dI * Iy, axis=(0, 1))[None, :]
+    def sample(qx, qy):
+        """Bilinear patch at top-left (ox + qx, oy + qy), as klt's sampler."""
+        fqx, fqy = jnp.floor(qx), jnp.floor(qy)
+        fx = (qx - fqx)[:, None, None]
+        fy = (qy - fqy)[:, None, None]
+        row = (oy + fqy.astype(jnp.int32))[:, None, None] + r
+        col = (ox + fqx.astype(jnp.int32))[:, None, None] + c
+        off = row * W + col
+        at = lambda o: plgpu.load(img_ref.at[o], mask=pmask, other=0.0)
+        return (at(off) * (1 - fx) * (1 - fy) + at(off + 1) * fx * (1 - fy)
+                + at(off + W) * (1 - fx) * fy + at(off + W + 1) * fx * fy)
+
+    def cond(carry):
+        it, _, _, active = carry
+        return (it < iters) & (jnp.max(active) > 0)
+
+    def body(carry):
+        it, qx, qy, active = carry
+        dI = sample(qx, qy) - T
+        bx = patch_sum(dI * Ix)
+        by = patch_sum(dI * Iy)
         dx = -(Gyy * bx - Gxy * by) * inv_det
         dy = -(-Gxy * bx + Gxx * by) * inv_det
-        frozen = done > 0.5
-        qx_n = jnp.where(frozen, qx, jnp.clip(qx + dx, 0.0, hi))
-        qy_n = jnp.where(frozen, qy, jnp.clip(qy + dy, 0.0, hi))
-        done_n = jnp.maximum(
-            done, (jnp.sqrt(dx * dx + dy * dy) < eps).astype(done.dtype)
-        )
-        return qx_n, qy_n, done_n
+        live = active > 0
+        qx = jnp.where(live, jnp.clip(qx + dx, 0.0, hi), qx)
+        qy = jnp.where(live, jnp.clip(qy + dy, 0.0, hi), qy)
+        active = jnp.where(jnp.sqrt(dx * dx + dy * dy) < eps, 0, active)
+        return it + 1, qx, qy, active
 
-    # Early-exit (while_loop on "all 128 lanes frozen") was A/B-measured
-    # in r4 on the photoreal stage bench: 1.357 ms fixed-count vs
-    # 1.391 ms adaptive — one unconverged lane per block keeps the whole
-    # block iterating, so the exit almost never fires and the per-
-    # iteration all-done reduction is pure overhead. Fixed count stays.
-    qx, qy, _ = jax.lax.fori_loop(0, iters, body, (qx0, qy0, done0))
-
-    P_fin = _sample(tgt, qx[0], qy[0], win, n_off)
-    err_ref[:, :] = jnp.mean(jnp.abs(P_fin - T), axis=(0, 1))[None, :]
-    qout_ref[0:1, :] = qx
-    qout_ref[1:2, :] = qy
+    # ``active`` is int32: the loop carry stays clear of i1 tensors.
+    _, qx, qy, _ = jax.lax.while_loop(
+        cond, body, (jnp.int32(0), qx0, qy0, jnp.ones((1,), jnp.int32)))
+    err = patch_sum(jnp.where(pmask, jnp.abs(sample(qx, qy) - T), 0.0))
+    plgpu.store(qx_out.at[k], qx)
+    plgpu.store(qy_out.at[k], qy)
+    plgpu.store(err_out.at[k], err / (win * win))
 
 
-@functools.partial(jax.jit, static_argnums=(5, 6, 7, 8))
-def lk_iterate_pallas(tgt_wins_T, T, Ix, Iy, q0, win: int, iters: int,
-                      eps: float, interpret: bool | None = None):
-    """Run ``iters`` LK refinement steps for all keypoints.
+@functools.partial(jax.jit, static_argnames=("S", "iters", "eps",
+                                             "interpret"))
+def lk_iterate(img, o, T, Ix, Iy, q0, S: int, iters: int, eps: float, *,
+               interpret: bool = False):
+    """All LK iterations of one pyramid level, one program per keypoint.
 
-    tgt_wins_T: [S, S, K]; T/Ix/Iy: [win, win, K]; q0: [K, 2] top-left
-    corners. Returns (q_fin [K, 2], err [K]). K is padded to a multiple of
-    the 128-lane block internally. ``interpret=None`` auto-selects
-    interpret mode on backends that cannot compile Mosaic (CPU).
+    img: [H, W] target level; o: [K, 2] int32 (x, y) origins of the S x S
+    search windows (inside the image); T/Ix/Iy: [K, win, win] template and
+    gradients; q0: [K, 2] top-left patch corners in window coordinates.
+    Returns (q_fin [K, 2], err [K]), the contract of
+    ``klt._lk_iterate_scan``.
     """
-    interpret = resolve_interpret(interpret)
-    S = tgt_wins_T.shape[0]
-    K = tgt_wins_T.shape[-1]
-    Kb = _LANE_BLOCK
-    Kp = pl.cdiv(K, Kb) * Kb
-    if Kp != K:
-        padw = [(0, 0), (0, 0), (0, Kp - K)]
-        tgt_wins_T = jnp.pad(tgt_wins_T, padw)
-        T = jnp.pad(T, padw)
-        Ix = jnp.pad(Ix, padw)
-        # Pad Iy's G-matrix to identity-safe zeros like the rest.
-        Iy = jnp.pad(Iy, padw)
-        q0 = jnp.pad(q0, [(0, Kp - K), (0, 0)])
-
-    q_in = jnp.transpose(q0.astype(jnp.float32), (1, 0))  # [2, Kp]
-    kern = functools.partial(_lk_kernel, win, S, iters, float(eps))
-    q_out, err = pl.pallas_call(
+    H, W = img.shape
+    K, win, _ = T.shape
+    assert win <= PATCH, win
+    f32 = jnp.float32
+    kern = functools.partial(_lk_kernel, W=W, win=win, S=S, iters=iters,
+                             eps=float(eps))
+    qx, qy, err = pl.pallas_call(
         kern,
-        grid=(Kp // Kb,),
-        in_specs=[
-            pl.BlockSpec((S, S, Kb), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((win, win, Kb), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((win, win, Kb), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((win, win, Kb), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((2, Kb), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((2, Kb), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, Kb), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((2, Kp), jnp.float32),
-            jax.ShapeDtypeStruct((1, Kp), jnp.float32),
-        ),
+        grid=(K,),
+        out_shape=[jax.ShapeDtypeStruct((K,), f32)] * 3,
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
-    )(tgt_wins_T.astype(jnp.float32), T.astype(jnp.float32),
-      Ix.astype(jnp.float32), Iy.astype(jnp.float32), q_in)
-    return jnp.transpose(q_out, (1, 0))[:K], err[0, :K]
-
-
-# ---------------------------------------------------------------------------
-# Window extraction: image-resident-in-VMEM + per-keypoint rotate compaction
-# ---------------------------------------------------------------------------
-#
-# XLA lowers a vmapped ``dynamic_slice`` over K keypoints to a gather that
-# costs ~0.28 ms per 512 x 34 x 34 extraction on a v5e (measured r2) — the
-# tracker's dominant cost at 8 extractions/frame. Per-keypoint DMA is no
-# better (~2.4 us/keypoint issue overhead). This kernel instead moves the
-# WHOLE image into VMEM once (video frames are ~2 MB, one DMA at HBM
-# speed), then compacts each window on the VPU: an (8, 128)-tile-aligned
-# slice of the VMEM image (alignment provable to Mosaic because the caller
-# passes tile indices and the kernel multiplies them back up), two dynamic
-# rotates (``pltpu.roll``) to cancel the in-tile residual offset, and a
-# static top-left crop. ~0.03 ms per extraction — ~10x the gather.
-
-_SUP_X = 256  # minimal 128-lane cover of (S <= 128) + (ox % 128) <= 127
-_VMEM_IMG_BUDGET = 8 * 1024 * 1024  # fall back to XLA gather above this
-
-
-def _sup_y(size: int) -> int:
-    """Minimal x8 row count covering ``size`` rows at any 8-row phase."""
-    return ((size + 7 + 7) // 8) * 8
-
-
-def _extract_kernel(S, KB, oy_t_ref, ox_t_ref, dy_ref, dx_ref, img_ref,
-                    out_ref, img_vmem, sem):
-    """img_ref: [B, Hp, Wp] HBM (padded); out_ref: VMEM block [1, KB, S, S];
-    oy_t/ox_t: [B, K] tile indices; dy/dx: [B, K] in-tile residuals.
-
-    Grid (B, K // KB), k fastest: the full image is DMA'd into VMEM once
-    per batch element (at k == 0) and all its K windows are compacted from
-    there."""
-    b = pl.program_id(0)
-    kb = pl.program_id(1)
-    SY = _sup_y(S)
-
-    @pl.when(kb == 0)
-    def _():
-        cp = pltpu.make_async_copy(img_ref.at[b], img_vmem, sem)
-        cp.start()
-        cp.wait()
-
-    k0 = kb * KB
-
-    def body(i, carry):
-        a = img_vmem[
-            pl.ds(oy_t_ref[b, k0 + i] * 8, SY),
-            pl.ds(ox_t_ref[b, k0 + i] * 128, _SUP_X),
-        ]
-        # out[r, c] = a[r + dy, c + dx]: left-rotate by (dy, dx), then the
-        # static top-left S x S corner is the window.
-        a = pltpu.roll(a, jax.lax.rem(SY - dy_ref[b, k0 + i], SY), 0)
-        a = pltpu.roll(a, jax.lax.rem(_SUP_X - dx_ref[b, k0 + i], _SUP_X), 1)
-        out_ref[0, i] = a[:S, :S]
-        return carry
-
-    jax.lax.fori_loop(0, KB, body, 0)
-
-
-@functools.partial(jax.jit, static_argnums=(3, 4))
-def _extract_windows_batched(img, oy, ox, size: int,
-                             interpret: bool | None = None):
-    """[B, K] integer window origins -> [B, K, size, size] window stack.
-
-    Origins must satisfy 0 <= oy <= H - size, 0 <= ox <= W - size.
-    """
-    interpret = resolve_interpret(interpret)
-    B, H, W = img.shape
-    K = oy.shape[1]
-    S = int(size)
-    SY = _sup_y(S)
-    # Pad so every aligned superset slice is in (logical) bounds.
-    Hp = max(((H + 7) // 8) * 8 + 8, SY)
-    Wp = max(((W + 127) // 128) * 128 + 128, _SUP_X)
-    img_p = jnp.pad(img, ((0, 0), (0, Hp - H), (0, Wp - W)))
-
-    oy = oy.astype(jnp.int32)
-    ox = ox.astype(jnp.int32)
-    oy_t = jnp.clip(oy // 8, 0, (Hp - SY) // 8)
-    ox_t = jnp.clip(ox // 128, 0, (Wp - _SUP_X) // 128)
-    dy = oy - oy_t * 8
-    dx = ox - ox_t * 128
-
-    KB = min(K, 128)
-    Kp = ((K + KB - 1) // KB) * KB
-    if Kp != K:
-        pad = [(0, 0), (0, Kp - K)]
-        oy_t, ox_t = jnp.pad(oy_t, pad), jnp.pad(ox_t, pad)
-        dy, dx = jnp.pad(dy, pad), jnp.pad(dx, pad)
-
-    kern = functools.partial(_extract_kernel, S, KB)
-    out = pl.pallas_call(
-        kern,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=4,
-            grid=(B, Kp // KB),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.MemorySpace.HBM)],
-            out_specs=pl.BlockSpec(
-                (1, KB, S, S), lambda b, k, *_: (b, k, 0, 0)
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((Hp, Wp), img.dtype),
-                pltpu.SemaphoreType.DMA(()),
-            ],
-        ),
-        out_shape=jax.ShapeDtypeStruct((B, Kp, S, S), img.dtype),
-        interpret=interpret,
-    )(oy_t, ox_t, dy, dx, img_p)
-    return out[:, :K]
-
-
-def _make_extract_cv(size: int, interpret: bool):
-    @jax.custom_batching.custom_vmap
-    def extract(img, oy, ox):
-        return _extract_windows_batched(img[None], oy[None], ox[None],
-                                        size, interpret)[0]
-
-    @extract.def_vmap
-    def _vmap_rule(axis_size, in_batched, img, oy, ox):
-        bcast = lambda x, b: x if b else jnp.broadcast_to(
-            x[None], (axis_size,) + x.shape
-        )
-        out = _extract_windows_batched(
-            bcast(img, in_batched[0]), bcast(oy, in_batched[1]),
-            bcast(ox, in_batched[2]), size, interpret,
-        )
-        return out, True
-
-    return extract
-
-
-_extract_cv_cache: dict = {}
-
-
-def extract_windows_pallas(img, oy, ox, size: int,
-                           interpret: bool | None = None):
-    """[K] size x size windows of ``img`` at integer origins (oy, ox).
-
-    DMA/VPU replacement for the vmapped-``dynamic_slice`` gather; origins
-    must be pre-clamped to [0, H - size] x [0, W - size]. ``size`` must be
-    a Python int <= 128 (the _SUP_X=256 rotate cover assumes
-    dx <= 127 and S <= 128; larger windows must use the gather path).
-    Outer ``vmap``s map onto the kernel grid (one program per batch
-    element) via a custom batching rule.
-    """
-    if int(size) > 128:
-        raise ValueError(
-            f"extract_windows_pallas supports size <= 128, got {size}; "
-            "use the dynamic_slice gather path for larger windows."
-        )
-    key = (int(size), resolve_interpret(interpret))
-    fn = _extract_cv_cache.get(key)
-    if fn is None:
-        fn = _extract_cv_cache[key] = _make_extract_cv(*key)
-    return fn(img, oy, ox.astype(jnp.int32))
-
-
-def extraction_fits_vmem(h: int, w: int, itemsize: int = 4) -> bool:
-    """Whether the VMEM-resident extraction kernel can hold the image."""
-    Hp = ((h + 7) // 8) * 8 + 8
-    Wp = ((w + 127) // 128) * 128 + 128
-    return Hp * Wp * itemsize <= _VMEM_IMG_BUDGET
+        backend="triton",
+        name="klt_lk_iterate",
+    )(img.reshape(-1).astype(f32), o[:, 0].astype(jnp.int32),
+      o[:, 1].astype(jnp.int32), q0[:, 0].astype(f32), q0[:, 1].astype(f32),
+      T.reshape(-1).astype(f32), Ix.reshape(-1).astype(f32),
+      Iy.reshape(-1).astype(f32))
+    return jnp.stack([qx, qy], axis=-1), err

@@ -1,6 +1,6 @@
-"""Epipolar-depth residuals: the optimization core's math, batched for TPU.
+"""Epipolar-depth residuals: the optimization core's math, batched.
 
-This is the TPU-native reimplementation of the reference's landmark-free
+This is the reimplementation of the reference's landmark-free
 reprojection residual and its analytic SE(3) Jacobian:
 
 - residual ``res()``            -> :func:`residual`       (ref `jac_Rt_gen_.cpp:212-259`)
@@ -19,7 +19,7 @@ has the closed form
 The residual is the Huber-robustified half-squared reprojection error of
 X' = R (d p) + t against p'.
 
-Design notes (TPU-first):
+Design notes:
 - All functions are shape-static and mask-friendly: invalid points
   contribute exactly zero residual and zero Jacobian, mirroring the
   reference's degenerate-case `continue`s (`jac_Rt_gen_.cpp:152-154,187-189`)
@@ -161,8 +161,8 @@ def residual_jacobian(
     rev = jnp.asarray(reverse)
     sign = jnp.where(rev, -1.0, 1.0).astype(dtype)
 
-    # mul44, not @: the TPU compiler mis-lowers tiny batched dots under
-    # nested vmap + scan (see se3.mul44).
+    # mul44, not @: tiny batched dots under nested vmap + scan (see
+    # se3.mul44).
     T0 = se3.mul44(Tl, Tr)
     R0 = T0[..., :3, :3]
     t0 = T0[..., :3, 3]

@@ -1,19 +1,19 @@
-"""Essential-matrix estimation and pose recovery, batched for TPU.
+"""Essential-matrix estimation and pose recovery, batched.
 
-TPU-native replacement for the reference's OpenCV calls:
+Replacement for the reference's OpenCV calls:
 - ``findEssentialMat`` (RANSAC / LMedS policies, ref sites listed in
   SURVEY.md C13, e.g. `kitti_E.cpp:98-104`, `kitti_ba.cpp:232,308,702`)
   -> :mod:`epivo_tpu.ransac` drives the batched solvers here.
 - ``recoverPose`` + cheirality masking (`kitti_E.cpp:120,174-186`)
   -> :func:`decompose` + :func:`recover_pose`.
 
-Design choice (TPU-first): hypotheses are solved with the normalized
-8-point algorithm batched over thousands of minimal samples via one
-``vmap``-ed SVD, instead of OpenCV's serial Nistér 5-point. The 5-point
-action-matrix method needs a nonsymmetric eigendecomposition, which XLA has
-no TPU kernel for; 8-point minimal samples + Sampson scoring + the
-downstream LM pose refinement reaches the same accuracy on VO-scale match
-counts while keeping every step MXU-friendly dense linear algebra.
+Design choice: hypotheses are solved with the normalized 8-point
+algorithm batched over thousands of minimal samples via one ``vmap``-ed
+SVD, instead of OpenCV's serial Nistér 5-point. The 5-point action-matrix
+method needs a nonsymmetric eigendecomposition; 8-point minimal samples +
+Sampson scoring + the downstream LM pose refinement reaches the same
+accuracy on VO-scale match counts with dense batched linear algebra
+(``fivepoint`` holds a batched 5-point solver as well).
 
 All points are in *normalized* camera coordinates (homogeneous, z=1), i.e.
 already multiplied by K^-1 — matching the reference's convention after
@@ -45,7 +45,7 @@ def smallest_eigvec_9(AtA: jnp.ndarray, iters: int = 8) -> jnp.ndarray:
     """Eigenvector of the smallest eigenvalue of a batched PSD 9x9 matrix
     via fixed-iteration inverse iteration (batched Cholesky solves).
 
-    ~5-10x faster than ``jnp.linalg.eigh`` on TPU for the RANSAC workload
+    Used in place of ``jnp.linalg.eigh`` for the RANSAC workload
     (thousands of tiny matrices): the full spectrum is never needed, only
     the null-ish direction, and inverse iteration converges in a handful of
     triangular solves with ratio lambda_min/lambda_2.
@@ -58,8 +58,7 @@ def smallest_eigvec_9(AtA: jnp.ndarray, iters: int = 8) -> jnp.ndarray:
     # Materialize M^-1 once; the power iterations are then pure batched
     # matvecs (the 9x9 inverse is safe here: the ridge bounds the
     # condition number). The factorization is the unrolled small-SPD
-    # Cholesky — XLA's batched tiny cholesky/cho_solve lowers to slow
-    # loops on TPU (see optim/smallchol.py).
+    # Cholesky (see optim/smallchol.py).
     from epivo_tpu.optim import smallchol
 
     Minv = smallchol.inv_spd_small(M)
@@ -223,7 +222,7 @@ def refine_essential(
     """Gauss-Newton refinement of E on its 5-DoF manifold (Sampson cost).
 
     The accuracy counterpart of OpenCV's 5-point solver without the
-    nonsymmetric eigenproblem TPUs lack: parametrize E = [t]_x R by a
+    nonsymmetric eigenproblem: parametrize E = [t]_x R by a
     rotation increment (3 DoF) and a translation-direction increment in the
     tangent plane of the unit sphere (2 DoF), and iterate damped GN on the
     Sampson residuals. Fixed iteration count, jit/vmap-safe.

@@ -3,11 +3,11 @@
 The reference's E estimation goes through OpenCV's ``findEssentialMat``,
 whose minimal solver is Nistér's 5-point (`kitti_E.cpp:98-104`). Round 1-2
 substituted batched 8-point + manifold refinement (cv2-accuracy-class,
-A/B-tested) because TPUs lack a nonsymmetric eigensolver; this module
+A/B-tested) to avoid a nonsymmetric eigensolver; this module
 closes the remaining gap — a TRUE minimal solver, so RANSAC needs only 5
 inliers per sample (vs 8), which matters at high outlier ratios.
 
-TPU-first design (everything batched over S samples, fixed shapes):
+Design (everything batched over S samples, fixed shapes):
 
 1. Nullspace: the 4-dim nullspace of the 5x9 constraint matrix via
    subspace inverse iteration on the ridge-shifted 9x9 normal matrix

@@ -1,15 +1,15 @@
 """Closed-form batched 3x3 factorizations for the RANSAC hot path.
 
-``jnp.linalg.svd`` on TPU runs an iterative one-sided Jacobi per matrix —
-for the essential-matrix pipeline that is thousands of tiny dependent
-iterations per RANSAC call (512 hypothesis projections + pose recovery).
-These kernels replace it with the analytic route:
+``jnp.linalg.svd`` runs an iterative factorization per matrix — for the
+essential-matrix pipeline that is thousands of tiny dependent iterations
+per RANSAC call (512 hypothesis projections + pose recovery). These
+functions replace it with the analytic route:
 
   eigvals of the symmetric M^T M via the trigonometric (Cardano) formula,
   eigenvectors via cross-products of (A - lambda I) rows,
   U recovered by mapping V through M with an orthonormal completion.
 
-Everything is elementwise/batched VPU math — no per-matrix iteration, no
+Everything is elementwise batched math — no per-matrix iteration, no
 data-dependent control flow. Accuracy is f32-sufficient for RANSAC
 hypothesis projection AND for final pose recovery (validated against
 OpenCV in tests/test_opencv_parity.py and against jnp.linalg.svd in

@@ -1,6 +1,6 @@
-"""Batched SE(3) / SO(3) operations for TPU (pure JAX, fixed shapes).
+"""Batched SE(3) / SO(3) operations (pure JAX, fixed shapes).
 
-TPU-native replacement for the reference's Sophus usage
+Replacement for the reference's Sophus usage
 (`/root/reference/jac_Rt_gen_.cpp:419` ``Sophus::SE3<double>::exp``,
 `/root/reference/sequence.hpp:14-21` rotation generation). Everything is
 written as closed-form, branch-free tensor math so it batches with ``vmap``
@@ -157,10 +157,9 @@ def identity(batch_shape=(), dtype=jnp.float32) -> jnp.ndarray:
 def mul44(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Batched 4x4 matrix product as broadcast-multiply + sum.
 
-    For tiny matrices a ``dot_general`` wastes the MXU, and the TPU
-    compiler mis-lowers it to a dilated convolution with a wrong shape
-    under nested vmap + scan (hit at r3 in the batched windowed-BA solve);
-    mul+sum stays on the VPU and lowers robustly.
+    Used in place of ``@`` inside the batched windowed-BA solve, where the
+    tiny ``dot_general`` sits under nested vmap + scan; mul+sum is plain
+    elementwise work on any backend (ROADMAP C3 reviews whether it stays).
     """
     return jnp.sum(a[..., :, :, None] * b[..., None, :, :], axis=-2)
 

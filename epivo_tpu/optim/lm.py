@@ -1,6 +1,6 @@
 """Levenberg-Marquardt over SE(3) pose chains — the optimizer core.
 
-TPU-native re-design of the reference's ``Levenberg_Marquardt``
+Re-design of the reference's ``Levenberg_Marquardt``
 (`jac_Rt_gen_.cpp:287-478`) + ``RepJacobian::compute`` (`:262-284`) +
 ``T0_mem`` prefix cache (`:18-20,327-335`):
 
@@ -213,8 +213,8 @@ def solve(
         # where any absolute floor would drown the actual curvature.
         h_scale = jnp.mean(diag) + 1e-30
         H_damped = H_damped + (1e-7 * h_scale) * jnp.eye(Z * 6, dtype=dtype)
-        # Unrolled SPD Cholesky: XLA's batched tiny LU is the dominant cost
-        # of the whole solver on TPU (see optim/smallchol.py).
+        # Unrolled SPD Cholesky in place of a batched tiny LU (see
+        # optim/smallchol.py).
         from epivo_tpu.optim import smallchol
 
         delta = -smallchol.solve_spd_small(H_damped, b)

@@ -1,19 +1,12 @@
-"""Lane-major batched LM: the windowed-BA solver laid out for TPU tiles.
+"""Window-last batched LM: the windowed-BA solver with the batch axis last.
 
-Why this exists (r3 profiling): ``lm.solve_batched`` vmaps the reference-
-shaped formulation, so every tensor carries the tiny geometric dims last —
-J is [W, R, N, Z, 6], dT is [W, R, Z, 6, 4, 4], residuals [W, R, N]. TPU
-vector memory tiles are (8, 128) over the last two dims, so a trailing
-(Z=2, 6) pays a ~85x padding inflation and a trailing (4, 4) pays 64x:
-the chip moves (and computes on) almost-empty tiles. Measured on a v5e:
-windowed-BA throughput saturates at ~3.0k windows/s from W=64 to W=1024 —
-bounded by padded-tile traffic, not FLOPs (which are ~9 GFLOP/s there,
-&lt;0.1% of the chip).
-
-This module re-expresses the SAME solver (identical math, schedule, and
-masking semantics as ``lm.solve`` — `jac_Rt_gen_.cpp:287-478` lineage)
-with the WINDOW axis last, riding the 128 lanes, and the point axis N
-second-to-last, filling sublanes:
+``lm.solve_batched`` vmaps the reference-shaped formulation, so every
+tensor carries the tiny geometric dims last — J is [W, R, N, Z, 6], dT is
+[W, R, Z, 6, 4, 4], residuals [W, R, N]. This module re-expresses the SAME
+solver (identical math, schedule, and masking semantics as ``lm.solve`` —
+`jac_Rt_gen_.cpp:287-478` lineage) with the WINDOW axis last and the point
+axis N second-to-last, so every elementwise op runs over long contiguous
+[N, W] planes:
 
     points   [R, 3, N, W]      residuals [R, N, W]
     poses    [Z, 4, 4, W]      Jacobian blocks per (rep, zeta): [6, N, W]
@@ -113,10 +106,8 @@ def _exp_lanes(xi):
 def _chol_solve_lanes(H, b):
     """Lane-major Cholesky solve of H x = b for [D, D, W] SPD systems.
 
-    ``jnp.linalg.solve`` lowers batched tiny LU terribly on TPU (76.5 ms
-    of a 101 ms solver step for [512, 12, 12] at r3 profiling); the
-    unrolled recurrence here is a pure elementwise chain over [W] lane
-    vectors that XLA fuses into a handful of kernels. The damped, floored
+    The unrolled recurrence is a pure elementwise chain over [W] vectors
+    that XLA fuses into a handful of kernels, in place of a batched LU. The damped, floored
     H is SPD by construction; the sqrt guard keeps NaNs from non-SPD
     garbage inputs local (the accept/NaN gates reject the step anyway).
     """

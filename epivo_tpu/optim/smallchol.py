@@ -1,11 +1,8 @@
 """Unrolled Cholesky for tiny SPD systems (batch-leading layout).
 
-XLA's batched ``jnp.linalg.solve`` / ``cholesky`` lower tiny matrices to
-pathologically slow loops on TPU (r3 profiling: a [512, 12, 12] solve was
-76.5 ms of a 101 ms LM step; the [B, 6, 6] solve dominated the VO LM
-stage). For static D <= ~16 the factorization unrolls into a pure
-elementwise op chain over the batch dims that XLA fuses into a handful of
-kernels. The lane-major variant lives in ``lm_lanes._chol_solve_lanes``;
+For static D <= ~16 the factorization unrolls into a pure elementwise op
+chain over the batch dims that XLA fuses into a handful of kernels, in
+place of the batched ``jnp.linalg.solve`` / ``cholesky`` loops. The lane-major variant lives in ``lm_lanes._chol_solve_lanes``;
 this one keeps the conventional [..., D, D] layout for drop-in use.
 
 The sqrt guard keeps non-SPD garbage local: NaN/garbage deltas are the

@@ -7,7 +7,7 @@ SURVEY.md §2.3). Two patterns:
    data-parallel; each device solves its windows' LM systems locally, then
    global health metrics reduce over the mesh (XLA inserts the psum), and
    the global trajectory is stitched with a sharded associative scan over
-   4x4 pose products — the collective-permute ladder is XLA's, riding ICI.
+   4x4 pose products — the collective-permute ladder is XLA's.
 
 2. **Pod-scale RANSAC** (:func:`distributed_ransac_essential`): hypotheses
    shard over the ``hyp`` axis via ``shard_map``; each device scores its

@@ -17,7 +17,7 @@ chain, with
   pose system);
 - **conjugate gradients** with Jacobi preconditioning for the solve;
 - **distribution**: constraints shard across the mesh ('win' axis); every
-  matvec / gradient / energy reduces with one psum over ICI; the pose state
+  matvec / gradient / energy reduces with one psum; the pose state
   (6Z floats) is replicated — for trajectories this is tiny.
 
 Single-device semantics == ``optim.lm.solve`` up to the inexact CG solve;
@@ -185,7 +185,7 @@ def global_ba_solve(
       reps: [R, 2] spans (|z1 - z0| + 1 <= max_span).
       p, p_t: [R, N, 3] matches; wreps [R]; pmask [R, N].
       mesh: if given, the R axis is sharded over mesh axis ``axis_name``
-        and all reductions become psums over ICI (R must divide evenly;
+        and all reductions become psums (R must divide evenly;
         pad with wreps=0 constraints if needed).
     """
     Z = T0s.shape[0]

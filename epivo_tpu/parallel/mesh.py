@@ -1,7 +1,7 @@
 """Device-mesh utilities for SPMD scale-out.
 
 The reference has no distributed layer at all (SURVEY.md §2.3); this module
-is the from-scratch TPU-native equivalent: a mesh over chips/hosts, with
+is the from-scratch equivalent: a mesh over devices/hosts, with
 named axes for the framework's parallelism dimensions:
 
 - ``win``  — window/data parallelism: independent BA windows sharded across

@@ -4,8 +4,8 @@ The reference processes sliding windows serially on one CPU thread
 (`bundle_adjustment` `kitti_ba.cpp:757-905`, `bundle_adjustment_stereo`
 `:908-1068`), with busy-wait handoff from the matcher thread. Here the
 window axis is a *batch axis*: every window's LM solve runs simultaneously
-(`lm.solve_batched`), which is both the single-chip win (windows fill the
-MXU) and the multi-chip scaling axis (shard windows over the mesh — see
+(`lm.solve_batched`), which is both the single-device win (windows fill
+the device) and the multi-device scaling axis (shard windows over the mesh — see
 ``epivo_tpu.parallel``).
 
 Window structure (mono, ws=3, stride ws-1 — ref `kitti_ba.cpp:1133-1147`):
@@ -118,10 +118,10 @@ def ba_windows(
       p, p_t: [W, R, N, 3] normalized matches per window constraint.
       wreps: [W, R] constraint weights.
       pmask: [W, R, N] point validity.
-      use_lanes: solve with the lane-major LM (``optim.lm_lanes``) —
-        identical semantics, ~20-30x the throughput of the vmapped
-        reference-layout solver on TPU (its trailing tiny dims pay ~85x
-        tile-padding inflation; see lm_lanes module docstring).
+      use_lanes: solve with the window-last LM (``optim.lm_lanes``) —
+        identical semantics to the vmapped reference-layout solver
+        (``optim.lm``); which is faster on the GPU is measured by
+        ``chip_smoke.py``.
 
     Underfilled constraints should be zero-weighted by the caller
     (ref `kitti_ba.cpp:821-826`); windows whose final residual norm exceeds

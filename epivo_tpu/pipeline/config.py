@@ -19,8 +19,8 @@ class FrontendConfig:
     max_keypoints: int = 1024  # fixed budget (replaces dynamic kp vectors)
     klt_window: int = 21  # OpenCV default the reference relies on
     klt_levels: int = 4
-    # OpenCV's 30 is a max with eps early-exit; fixed-shape TPU iterations
-    # pay full cost, and accuracy is flat beyond ~10 (see BENCH notes).
+    # OpenCV's 30 is a max with eps early-exit; the scan form of the loop
+    # pays every iteration, and accuracy is flat beyond ~10.
     klt_iters: int = 12
     klt_min_eig: float = 1e-4
     # ORB path (vo_step_orb). Pyramid mode reaches the reference's
@@ -51,7 +51,7 @@ class FrontendConfig:
 class RansacConfig:
     # Hypothesis count. None derives it from (confidence, outlier_ratio) via
     # the classic RANSAC iteration formula — the reference's per-driver
-    # confidence policies (SURVEY C13) expressed the TPU way: the count must
+    # confidence policies (SURVEY C13) with static shapes: the count must
     # be static, so it is resolved at config time, not per call.
     n_hyp: int | None = None
     confidence: float = 0.99  # ref `kitti_E.cpp:102`
@@ -70,8 +70,8 @@ class RansacConfig:
 
     def hypotheses(self) -> int:
         """Static hypothesis count: explicit ``n_hyp``, else derived from
-        the confidence policy, rounded up to full 128-lane registers and
-        clamped to a TPU-sane range."""
+        the confidence policy, rounded up to a multiple of 128 and
+        clamped to a sane range."""
         if self.n_hyp is not None:
             return self.n_hyp
         from epivo_tpu import ransac as _ransac
@@ -239,10 +239,8 @@ class GlobalBAConfig:
     """Global full-trajectory BA refinement stage (parallel/global_ba.py)
     over the windowed result — our own north-star component; the reference
     only ever chains independent ws=3 windows (`kitti_ba.cpp:853-870`).
-    Off by default: it is a polish pass. With the r5 scale graph
-    supplying correct norms, the polish shows a real measured delta:
-    300-frame corridor no-GT sim3 ATE 1.99% -> 1.43%
-    (ATE_photoreal.json ba_no_gt vs ba_no_gt_global)."""
+    Off by default: it is a polish pass. Its accuracy effect on the
+    rendered corridor is not measured on the current accelerator."""
 
     enabled: bool = False
     max_iters: int = 20
@@ -257,7 +255,7 @@ class GlobalBAConfig:
 @dataclasses.dataclass(frozen=True)
 class LoopConfig:
     """Loop closure (pipeline/loopclose.py): keyframe Hamming retrieval
-    on the MXU + ORB/RANSAC geometric verification + SE(3) drift
+    as matmuls + ORB/RANSAC geometric verification + SE(3) drift
     spreading. The reference has no loop closure at all (PARITY known
     gaps); this is the drift lever beyond the windowed BA + global BA
     stages. Off by default — it is a post-stage over the assembled
@@ -335,3 +333,28 @@ class BAConfig:
     loop: LoopConfig = LoopConfig()
     window_size: int = 3  # ws, ref `kitti_ba.cpp:1107`
     stride: int = 2  # stridew = ws - 1, ref `kitti_ba.cpp:1134`
+
+
+def kitti_config(mode: str, camera: cam.Pinhole = cam.KITTI_00,
+                 fast_threshold: float = 40.0, max_keypoints: int = 1024,
+                 n_hyp: int = 512, global_ba: bool = False,
+                 loop_close: bool = False) -> VOConfig | BAConfig:
+    """The configuration ``scripts/run_kitti.py --mode {vo,gt,ba,stereo}``
+    runs a KITTI odometry sequence with (its command-line defaults)."""
+    fe = FrontendConfig(fast_threshold=fast_threshold,
+                        max_keypoints=max_keypoints)
+    rc = RansacConfig(n_hyp=n_hyp, method="lmeds" if mode == "vo"
+                      else "ransac")
+    if mode == "vo":
+        return VOConfig(camera=camera, frontend=fe, ransac=rc,
+                        lm=LMConfig(n_points=48, revert_r_norm=1e-4))
+    if mode == "gt":
+        return VOConfig(camera=camera, frontend=fe, ransac=rc,
+                        lm=LMConfig(n_points=48))
+    lm = LMConfig(n_points=32, revert_r_norm=1e-2)
+    if mode == "stereo":
+        return BAConfig(camera=camera, frontend=fe, ransac=rc, lm=lm)
+    assert mode == "ba", mode
+    return BAConfig(camera=camera, frontend=fe, ransac=rc, lm=lm,
+                    global_ba=GlobalBAConfig(enabled=global_ba),
+                    loop=LoopConfig(enabled=loop_close))

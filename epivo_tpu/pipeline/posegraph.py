@@ -473,9 +473,9 @@ def self_consistency(traj_old: np.ndarray, traj_new: np.ndarray,
     on a course whose odometry is broken beyond smooth drift — KLT turn
     collapses leaving self-consistent ~40%-of-true rotations — the
     zero-baseline position constraints can be 'satisfied' cheapest by
-    inflating the scale DOF, and the chip run of the two-lap course did
-    exactly that: length ratio 0.46 -> 3.37 with sim3 ATE unimproved,
-    POSE_GRAPH.json r5). Two checks, both on quantities the pipeline can
+    inflating the scale DOF, and a run of the two-lap course did exactly
+    that: length ratio 0.46 -> 3.37 with sim3 ATE unimproved). Two
+    checks, both on quantities the pipeline can
     compute WITHOUT ground truth:
 
     - the net length change must stay inside ``max_scale`` (a genuine

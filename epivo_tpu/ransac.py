@@ -1,12 +1,12 @@
-"""Batched robust model estimation: RANSAC and LMedS over TPU lanes.
+"""Batched robust model estimation: RANSAC and LMedS.
 
 The reference calls OpenCV's serial ``findEssentialMat`` with per-driver
 policies (SURVEY.md C13: RANSAC 0.95-0.999 / thresholds 0.01-1.0 px, LMedS
 0.99). Here hypothesis generation, solving, and scoring are all batched:
 ``n_hyp`` minimal samples are drawn at once, solved with one vmapped
 8-point SVD, scored against all N matches with one einsum, and reduced with
-a single argmax — the shape of computation TPUs are built for, and the same
-shape scales across chips by sharding the hypothesis axis (see
+a single argmax — dense batched work, and the same shape scales across
+devices by sharding the hypothesis axis (see
 ``epivo_tpu.parallel``).
 
 Fixed shapes: both the match count N (padded, with ``mask``) and the

@@ -1,6 +1,6 @@
 // Native data-loading runtime: threaded PNG decode + prefetch ring buffer.
 //
-// TPU-native replacement for the reference's producer-thread pipeline
+// Replacement for the reference's producer-thread pipeline
 // (`kitti_ba.cpp:1118-1125`: an std::thread pushing decoded frames into
 // unguarded shared vectors, with consumers busy-waiting at :207-209 etc.).
 // This version keeps the same role — overlap image IO/decode with device

@@ -2,7 +2,7 @@
 
 The reference's only observability is ad-hoc couts (`kitti_ba.cpp:780,
 884-886,1219-1231`) and the ``LM_res`` triple. This module provides the
-TPU-build equivalents promised in SURVEY.md §5: wall-clock stage timers
+Equivalents promised in SURVEY.md §5: wall-clock stage timers
 with device fencing, JAX profiler trace capture, and a structured JSONL
 metrics sink.
 """

@@ -16,7 +16,7 @@ import sys
 
 parser = argparse.ArgumentParser()
 parser.add_argument("--platform", default=None)
-parser.add_argument("--out", default="/tmp/epivo_seq_demo")
+parser.add_argument("--out", default="out/seq_demo")
 parser.add_argument("--frames", type=int, default=8)
 args = parser.parse_args()
 if args.platform:
@@ -25,6 +25,9 @@ if args.platform:
 import jax
 if args.platform:
     jax.config.update("jax_platforms", args.platform)
+from epivo_tpu.utils import compile_cache
+
+compile_cache.enable()
 import jax.numpy as jnp
 import numpy as np
 

@@ -51,6 +51,9 @@ def main():
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
+    from epivo_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     from epivo_tpu.datasets import euroc
     from epivo_tpu.geometry.camera import EUROC_CAM0

@@ -66,6 +66,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from epivo_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     from epivo_tpu.datasets import photoreal
     from epivo_tpu.geometry import camera
@@ -188,7 +191,7 @@ def main():
             # The no-GT chain's realization varies run to run: the late
             # corridor section (the camera reaches the fixture's back
             # wall) puts several boundaries in a near-chaotic regime, so
-            # RANSAC draw changes (seed, or relay recompilation changing
+            # RANSAC draw changes (seed, or a recompilation changing
             # f32 rounding at near-ties) move the sim3 ATE by percents of
             # length. Report the spread rather than one lucky draw.
             vals = [out[t]["ate_sim3_pct_of_length"]

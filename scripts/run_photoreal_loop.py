@@ -1,4 +1,4 @@
-"""LOOP_CLOSE.json: end-to-end loop-closure evidence on the real chip.
+"""LOOP_CLOSE.json: end-to-end loop-closure evidence on the accelerator.
 
 Runs the full no-GT windowed-BA pipeline (`runners.run_ba_sequence`) on
 two photoreal loop courses, loop closure off and on, and records ATE,
@@ -42,6 +42,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from epivo_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     from epivo_tpu.datasets import photoreal
     from epivo_tpu.eval import metrics as ev

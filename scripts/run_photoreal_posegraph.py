@@ -1,4 +1,4 @@
-"""POSE_GRAPH.json: multi-loop Sim(3) pose-graph evidence on the real chip.
+"""POSE_GRAPH.json: multi-loop Sim(3) pose-graph evidence on the accelerator.
 
 Runs the full no-GT windowed-BA pipeline ONCE (loop closure off) on a
 two-lap photoreal loop course — every lap re-traverses both straights,
@@ -47,6 +47,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from epivo_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     from epivo_tpu.datasets import photoreal
     from epivo_tpu.eval import metrics as ev

@@ -45,6 +45,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from epivo_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     mesh = None
     if args.devices:

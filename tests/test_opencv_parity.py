@@ -1,7 +1,7 @@
 """Parity tests against OpenCV — the library the reference is built on.
 
 cv2 is a *test-only* oracle here: the framework never imports it. These
-tests pin our TPU-native kernels to the exact behaviors the reference
+tests pin our kernels to the exact behaviors the reference
 relies on (FAST corners, pyramidal LK, essential matrix + recoverPose).
 """
 

@@ -1,4 +1,4 @@
-"""Tests for oriented BRIEF descriptors and MXU Hamming matching."""
+"""Tests for oriented BRIEF descriptors and matmul Hamming matching."""
 
 import jax
 import jax.numpy as jnp
